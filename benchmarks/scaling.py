@@ -3,11 +3,10 @@
 
 Measures psort_keys throughput at fixed per-chip load while growing the mesh
 (1 -> P devices), reporting weak-scaling efficiency
-rate(P)/(P * rate(1)). On a multi-host pod run this under
-`jax.distributed.initialize`; on this dev box it runs on the virtual CPU
-mesh (set XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS
-via jax.config) — CPU numbers are only indicative of collective overheads,
-not TPU rates.
+rate(P)/(P * rate(1)). Across hosts run this under
+`jax.distributed.initialize`; ``--cpu-mesh N`` runs it on N virtual CPU
+devices instead — CPU numbers are only indicative of collective overheads,
+never device rates.
 
 Usage: python benchmarks/scaling.py [--per-chip 1M] [--zipf] [--devices 1,2,4,8]
 """
@@ -43,7 +42,9 @@ def main():
     import tinyhipradixsort_tpu as thrs
     from tinyhipradixsort_tpu.parallel import make_sort_mesh
     from tinyhipradixsort_tpu.parallel.psort import AXIS
-    from tinyhipradixsort_tpu.utils.profiling import time_fn
+    from tinyhipradixsort_tpu.utils import profiling
+
+    profiling.enable_compile_cache()
 
     sizes = {"256K": 1 << 18, "1M": 1 << 20, "4M": 1 << 22, "16M": 1 << 24,
              "64M": 1 << 26}
@@ -67,14 +68,13 @@ def main():
         kd = jax.device_put(jnp.asarray(keys),
                             NamedSharding(mesh, P(AXIS)))
         fn = lambda a: thrs.psort_keys(a, mesh=mesh)
-        t, _ = time_fn(fn, kd, reps=3)
+        _, t, _ = profiling.quartiles(profiling.time_fn(fn, kd, reps=3))
         rate = n / t
         if base_rate is None:
             base_rate = rate / p  # per-chip rate at smallest mesh
         eff = rate / (p * base_rate)
-        rows.append({"devices": p, "n": n, "seconds": round(t, 4),
-                     "keys_per_s": round(rate, 1),
-                     "weak_scaling_efficiency": round(eff, 3)})
+        rows.append({"devices": p, "n": n, "median_s": t,
+                     "keys_per_s": rate, "weak_scaling_efficiency": eff})
         print(f"P={p:3d} n={n:>12,} {t*1e3:9.1f} ms  {rate/1e6:9.1f} Mkeys/s"
               f"  eff={eff:.2f}", flush=True)
 
@@ -82,8 +82,9 @@ def main():
                        "scaling_results.json")
     with open(out, "w") as f:
         json.dump({"per_chip": per_chip, "zipf": args.zipf,
-                   "platform": jax.devices()[0].platform, "rows": rows}, f,
-                  indent=1)
+                   "platform": jax.devices()[0].platform,
+                   "device_kind": jax.devices()[0].device_kind,
+                   "rows": rows}, f, indent=1)
     print(f"wrote {out}")
 
 

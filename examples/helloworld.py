@@ -1,6 +1,6 @@
 """Canonical 32-key usage example — parity with the reference's helloworld
 (reference: helloworld.cpp:9-73: init -> Config -> RadixSort -> sortKeys ->
-print). On TPU the 'init/compile' steps are just jit tracing."""
+print). The 'init/compile' steps are just jit tracing."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -9,10 +9,12 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import tinyhipradixsort_tpu as thrs
+import tinyhipradixsort_tpu as thrs  # noqa: E402
+from tinyhipradixsort_tpu.utils import profiling  # noqa: E402
 
 
 def main():
+    profiling.enable_compile_cache()
     rng = np.random.default_rng(42)
     keys = jnp.asarray(rng.integers(0, 2**32, size=32, dtype=np.uint32))
 

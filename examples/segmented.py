@@ -1,11 +1,10 @@
-"""Batched and segmented sorting examples (TPU-native extensions).
+"""Batched and segmented sorting examples (extensions).
 
 The reference library sorts one flat array per call; common production
 workloads sort many independent arrays (top-k per query, per-page term
 lists). Two native forms here:
 
-* 2-D keys: every row sorts independently — on the Pallas engine this is a
-  truncated bitonic network at exactly B x one row's cost.
+* 2-D keys: every row sorts independently.
 * ``segment_ids``: stable order by ``(segment_id, key)`` — the
   cub::DeviceSegmentedRadixSort analogue, with ``segment_ids_from_offsets``
   accepting CUB-style offset arrays.
@@ -18,10 +17,12 @@ import numpy as np
 import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import tinyhipradixsort_tpu as thrs
+import tinyhipradixsort_tpu as thrs  # noqa: E402
+from tinyhipradixsort_tpu.utils import profiling  # noqa: E402
 
 
 def main():
+    profiling.enable_compile_cache()
     rng = np.random.default_rng(0)
 
     # --- batched: 8 independent rows of 1024 keys -------------------------

@@ -7,17 +7,17 @@ Usage: python examples/soak.py [--n N] [--pairs] [--dtype u32|u64|f32]
 """
 
 import argparse
+import os
+import sys
 import time
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-import os
-import sys
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import tinyhipradixsort_tpu as thrs
+import tinyhipradixsort_tpu as thrs  # noqa: E402
+from tinyhipradixsort_tpu.utils import profiling  # noqa: E402
 
 DTYPES = {"u32": np.uint32, "u64": np.uint64, "f32": np.float32,
           "i32": np.int32}
@@ -32,7 +32,7 @@ def main():
     args = ap.parse_args()
     dtype = np.dtype(DTYPES[args.dtype])
 
-    method = "pallas" if jax.devices()[0].platform == "tpu" else "auto"
+    profiling.enable_compile_cache()
     rng = np.random.default_rng()
     it = 0
     while True:
@@ -47,10 +47,10 @@ def main():
         t0 = time.perf_counter()
         if args.pairs:
             vals = np.arange(args.n, dtype=np.uint32)
-            sk, sv = thrs.sort_pairs(kd, jnp.asarray(vals), method=method)
+            sk, sv = thrs.sort_pairs(kd, jnp.asarray(vals))
             got_k, got_v = np.asarray(sk), np.asarray(sv)
         else:
-            got_k = np.asarray(thrs.sort_keys(kd, method=method))
+            got_k = np.asarray(thrs.sort_keys(kd))
         dt = time.perf_counter() - t0
         print(f"iter {it}: {dt*1e3:8.2f} ms ({args.n/dt/1e6:8.1f} Mkeys/s incl transfers)")
 

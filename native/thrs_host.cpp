@@ -1,6 +1,6 @@
 // Native host-side oracle & key transforms for tinyhipradixsort_tpu.
 //
-// TPU-native analogue of the reference's host components: the fpKey.hpp
+// Analogue of the reference's host components: the fpKey.hpp
 // key-bit mirror (reference: fpKey.hpp:1-38) and the parallel CPU radix-sort
 // oracle its benches verify against (reference: main.cpp:195,
 // unittest.cpp:526 — concurrency::parallel_radixsort). Used from Python via

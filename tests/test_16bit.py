@@ -1,7 +1,7 @@
-"""16-bit key dtypes (u16/i16/f16/bf16) — TPU-native extension.
+"""16-bit key dtypes (u16/i16/f16/bf16) — extension.
 
-No reference analogue (the reference sorts 32/64-bit keys only); bfloat16 is
-the native TPU compute dtype. Bits ride in one u32 word. Bit-exactness here
+No reference analogue (the reference sorts 32/64-bit keys only). Bits ride
+in one u32 word. Bit-exactness here
 is the hard part: XLA:CPU canonicalizes bf16/f16 NaN payload bits and
 flushes denormals in several float ops, so key rebuilds stay in the integer
 domain until a single final bitcast (see keybits.key_bits_inverse_raw).
@@ -57,7 +57,7 @@ def test_keybits_16_order_property():
         np.testing.assert_array_equal(a1 < a2, b1 < b2)
 
 
-@pytest.mark.parametrize("method", ["pallas", "argsort", "counting"])
+@pytest.mark.parametrize("method", ["argsort", "counting"])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_sort_keys_16_bit_exact(method, dtype):
     # raw-uniform data: NaN payloads and denormals must survive bit-exactly
@@ -67,7 +67,7 @@ def test_sort_keys_16_bit_exact(method, dtype):
     np.testing.assert_array_equal(got.view(np.uint16), x[p].view(np.uint16))
 
 
-@pytest.mark.parametrize("method", ["pallas", "argsort"])
+@pytest.mark.parametrize("method", ["argsort"])
 def test_sort_keys_16_descending(method):
     x = _rand_raw(2000).view(np.float16)
     got = np.asarray(thrs.sort_keys(jnp.asarray(x), order="descending",
@@ -76,7 +76,7 @@ def test_sort_keys_16_descending(method):
     np.testing.assert_array_equal(got.view(np.uint16), x[p].view(np.uint16))
 
 
-@pytest.mark.parametrize("method", ["pallas", "argsort"])
+@pytest.mark.parametrize("method", ["argsort"])
 def test_sort_pairs_16_keys_stability(method):
     x = (_rand_raw(2500) % 7).astype(np.uint16)
     v = np.arange(2500, dtype=np.uint32)
@@ -89,28 +89,27 @@ def test_sort_pairs_16_keys_stability(method):
 def test_sort_pairs_bf16_keys_with_payload():
     x = _rand_raw(1500).view(ml_dtypes.bfloat16)
     v = np.arange(1500, dtype=np.uint32)
-    k, vv = thrs.sort_pairs(jnp.asarray(x), jnp.asarray(v), method="pallas")
+    k, vv = thrs.sort_pairs(jnp.asarray(x), jnp.asarray(v))
     p = np.argsort(keybits.np_key_bits(x), kind="stable")
     np.testing.assert_array_equal(np.asarray(k).view(np.uint16),
                                   x[p].view(np.uint16))
     np.testing.assert_array_equal(np.asarray(vv), v[p])
 
 
-def test_bf16_payload_pallas_bit_exact():
-    # 16-bit float payloads ride as bitcast words on the pallas engine
-    # (narrow16 recipe) -> NaN payload bits survive
+def test_bf16_payload_bit_exact():
+    # 16-bit float payloads ride through the gather bit-exactly: NaN
+    # payload bits survive
     keys = RNG.integers(0, 2**32, size=1200, dtype=np.uint32)
     vraw = _rand_raw(1200)
     k, vv = thrs.sort_pairs(jnp.asarray(keys),
-                            jnp.asarray(vraw.view(ml_dtypes.bfloat16)),
-                            method="pallas")
+                            jnp.asarray(vraw.view(ml_dtypes.bfloat16)))
     p = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(np.asarray(vv).view(np.uint16), vraw[p])
 
 
 def test_batched_16bit():
     x = _rand_raw(6 * 300).reshape(6, 300).view(np.float16)
-    got = np.asarray(thrs.sort_keys(jnp.asarray(x), method="pallas"))
+    got = np.asarray(thrs.sort_keys(jnp.asarray(x)))
     bits = keybits.np_key_bits(x)
     p = np.argsort(bits, axis=1, kind="stable")
     want = np.take_along_axis(x, p, 1)
@@ -121,7 +120,7 @@ def test_window_16bit():
     x = _rand_raw(1000).astype(np.uint16)
     v = np.arange(1000, dtype=np.uint32)
     k, vv = thrs.sort_pairs(jnp.asarray(x), jnp.asarray(v),
-                            start_bit=4, end_bit=12, method="pallas")
+                            start_bit=4, end_bit=12)
     digit = (x.astype(np.uint32) >> 4) & 0xFF
     p = np.argsort(digit, kind="stable")
     np.testing.assert_array_equal(np.asarray(k), x[p])

@@ -1,8 +1,7 @@
-"""Batched (2-D row-wise) sort tests — TPU-native extension.
+"""Batched (2-D row-wise) sort tests — extension.
 
-Each row of a (B, n) key array sorts independently. On the Pallas engine this
-is the truncated bitonic network (stages 1..r, final stage forced ascending);
-portable engines vmap. Oracles: numpy axis-1 sorts.
+Each row of a (B, n) key array sorts independently (the engines vmap the
+row sort). Oracles: numpy axis-1 sorts.
 """
 
 import numpy as np
@@ -32,7 +31,7 @@ def _oracle_rows(x, descending=False):
     return np.take_along_axis(x, perm, 1), perm
 
 
-@pytest.mark.parametrize("method", ["pallas", "argsort"])
+@pytest.mark.parametrize("method", ["argsort"])
 @pytest.mark.parametrize("shape", [(4, 256), (6, 500), (1, 700), (37, 33)])
 def test_batched_sort_keys_u32(method, shape):
     x = _rand(np.uint32, shape)
@@ -44,14 +43,13 @@ def test_batched_sort_keys_u32(method, shape):
 @pytest.mark.parametrize("order", ["ascending", "descending"])
 def test_batched_sort_keys_dtypes(dtype, order):
     x = _rand(dtype, (5, 300))
-    got = np.asarray(thrs.sort_keys(jnp.asarray(x), order=order,
-                                    method="pallas"))
+    got = np.asarray(thrs.sort_keys(jnp.asarray(x), order=order))
     want, _ = _oracle_rows(x, descending=(order == "descending"))
     u = np.uint32 if np.dtype(dtype).itemsize == 4 else np.uint64
     np.testing.assert_array_equal(got.view(u), want.view(u))
 
 
-@pytest.mark.parametrize("method", ["pallas", "argsort"])
+@pytest.mark.parametrize("method", ["argsort"])
 def test_batched_sort_pairs_stability(method):
     B, n = 6, 400
     x = (_rand(np.uint32, (B, n)) % 7).astype(np.uint32)  # heavy duplicates
@@ -65,7 +63,7 @@ def test_batched_sort_pairs_stability(method):
 def test_batched_sort_indices():
     B, n = 4, 513
     x = (_rand(np.uint32, (B, n)) % 16).astype(np.uint32)
-    perm = np.asarray(thrs.sort_indices(jnp.asarray(x), method="pallas"))
+    perm = np.asarray(thrs.sort_indices(jnp.asarray(x)))
     np.testing.assert_array_equal(perm, np.argsort(x, axis=1, kind="stable"))
 
 
@@ -73,7 +71,7 @@ def test_batched_float_neg_zero_bit_exact():
     row = np.array([1.0, -0.0, 0.0, -0.0, 0.0, -1.0, 0.0, -0.0] * 16,
                    dtype=np.float32)
     x = np.stack([row, row[::-1], np.roll(row, 3)])
-    got = np.asarray(thrs.sort_keys(jnp.asarray(x), method="pallas"))
+    got = np.asarray(thrs.sort_keys(jnp.asarray(x)))
     want, _ = _oracle_rows(x)
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
@@ -83,7 +81,7 @@ def test_batched_window():
     x = _rand(np.uint32, (B, n))
     v = np.broadcast_to(np.arange(n, dtype=np.uint32), (B, n)).copy()
     k, vv = thrs.sort_pairs(jnp.asarray(x), jnp.asarray(v),
-                            start_bit=8, end_bit=16, method="pallas")
+                            start_bit=8, end_bit=16)
     digit = (x >> 8) & 0xFF
     perm = np.argsort(digit, axis=1, kind="stable")
     np.testing.assert_array_equal(np.asarray(k), np.take_along_axis(x, perm, 1))
@@ -93,7 +91,7 @@ def test_batched_window():
 @pytest.mark.parametrize("shape", [(3, 0), (3, 1), (0, 5), (1, 1)])
 def test_batched_degenerate(shape):
     x = _rand(np.uint32, shape)
-    got = np.asarray(thrs.sort_keys(jnp.asarray(x), method="pallas"))
+    got = np.asarray(thrs.sort_keys(jnp.asarray(x)))
     np.testing.assert_array_equal(got, np.sort(x, axis=1))
 
 
@@ -108,65 +106,13 @@ def test_3d_keys_rejected():
         thrs.sort_keys(jnp.zeros((2, 3, 4), jnp.uint32))
 
 
-def test_row_plan_tile_multiple_padding():
-    """The batch axis pads to a tile multiple, not a power of two (r3):
-    5000 rows of 1024 pad to 5120 (2.4% waste) instead of 8192 (64%)."""
-    from tinyhipradixsort_tpu.ops import bitonic_engine as be
-
-    t = be.EngineTuning()
-    T, b_pad = be._row_plan(5000, 10, 1, t)
-    assert b_pad == -(-5000 // (1 << (T - 10))) * (1 << (T - 10))
-    assert b_pad <= 5120, (T, b_pad)
-    # tile inside one row: no batch padding at all, any B divides
-    T, b_pad = be._row_plan(3, 22, 1, t)
-    assert T <= 22 and b_pad == 3
-    # pow2 batches keep the full tile (the cost model must not shrink T
-    # when padding is free)
-    T, b_pad = be._row_plan(16384, 10, 1, t)
-    assert T == t.tile_bits_cap and b_pad == 16384
-
-
-def test_batched_nonpow2_batch_tile_multiple_exec():
-    """Execute a plan whose padded batch is NOT a power of two (run_sweep's
-    grid A dimension comes from the real array length)."""
-    from tinyhipradixsort_tpu.ops import bitonic_engine as be
-
-    t = be.EngineTuning(tile_bits_cap=12)
-    B, nr = 136, 32
-    T, b_pad = be._row_plan(B, 5, 1, t)
-    assert b_pad & (b_pad - 1), (T, b_pad)  # policy picked a non-pow2 pad
-    x = _rand(np.uint32, (B, nr))
-    (got,), _ = be.sort_words_rows([jnp.asarray(x.reshape(-1))], [],
-                                   (B, nr), interpret=True, tuning=t)
-    np.testing.assert_array_equal(np.asarray(got).reshape(B, nr),
-                                  np.sort(x, axis=1))
-
-
 def test_batched_nonpow2_batch_pairs_public_api():
-    """Public-API route through the tile-multiple batch pad, with payload
-    stability across heavy duplicates."""
+    """A non-power-of-two batch of short rows, with payload stability
+    across heavy duplicates."""
     B, n = 136, 33
     x = (_rand(np.uint32, (B, n)) % 5).astype(np.uint32)
     v = np.broadcast_to(np.arange(n, dtype=np.uint32), (B, n)).copy()
-    k, vv = thrs.sort_pairs(jnp.asarray(x), jnp.asarray(v), method="pallas")
+    k, vv = thrs.sort_pairs(jnp.asarray(x), jnp.asarray(v))
     want, perm = _oracle_rows(x)
     np.testing.assert_array_equal(np.asarray(k), want)
     np.testing.assert_array_equal(np.asarray(vv), np.take_along_axis(v, perm, 1))
-
-
-def test_merge_rows_nonpow2_batch():
-    """merge_words_rows with a non-pow2 batch of bitonic rows."""
-    from tinyhipradixsort_tpu.ops import bitonic_engine as be
-
-    t = be.EngineTuning(tile_bits_cap=12)
-    B, nr = 21, 64
-    rows = []
-    for _ in range(B):
-        a = np.sort(RNG.integers(0, 2**32, nr // 2, dtype=np.uint32))
-        d = np.sort(RNG.integers(0, 2**32, nr // 2, dtype=np.uint32))[::-1]
-        rows.append(np.concatenate([a, d]))
-    x = np.stack(rows)
-    (got,), _ = be.merge_words_rows([jnp.asarray(x.reshape(-1))], [],
-                                    (B, nr), interpret=True, tuning=t)
-    np.testing.assert_array_equal(np.asarray(got).reshape(B, nr),
-                                  np.sort(x, axis=1))

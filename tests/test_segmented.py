@@ -24,7 +24,7 @@ def _rand_segments(n, nseg):
     return seg
 
 
-@pytest.mark.parametrize("method", ["pallas", "argsort", "counting"])
+@pytest.mark.parametrize("method", ["argsort", "counting"])
 def test_segmented_keys_u32(method):
     n = 2000
     x = RNG.integers(0, 2**32, size=n, dtype=np.uint32)
@@ -47,14 +47,13 @@ def test_segmented_keys_dtypes(dtype, order):
     seg = _rand_segments(n, 9)
     desc = order == "descending"
     got = np.asarray(thrs.sort_keys(jnp.asarray(x), order=order,
-                                    segment_ids=jnp.asarray(seg),
-                                    method="pallas"))
+                                    segment_ids=jnp.asarray(seg)))
     want = x[_oracle(seg, x, descending=desc)]
     u = np.uint32 if np.dtype(dtype).itemsize == 4 else np.uint64
     np.testing.assert_array_equal(got.view(u), want.view(u))
 
 
-@pytest.mark.parametrize("method", ["pallas", "argsort"])
+@pytest.mark.parametrize("method", ["argsort"])
 def test_segmented_pairs_stability(method):
     n = 1500
     x = (RNG.integers(0, 5, size=n)).astype(np.uint32)  # heavy duplicates
@@ -72,8 +71,7 @@ def test_segmented_indices():
     x = (RNG.integers(0, 9, size=n)).astype(np.uint32)
     seg = _rand_segments(n, 5)
     perm = np.asarray(thrs.sort_indices(jnp.asarray(x),
-                                        segment_ids=jnp.asarray(seg),
-                                        method="pallas"))
+                                        segment_ids=jnp.asarray(seg)))
     np.testing.assert_array_equal(perm, _oracle(seg, x))
 
 
@@ -82,8 +80,8 @@ def test_segmented_unsorted_ids_groups():
     n = 800
     x = RNG.integers(0, 2**32, size=n, dtype=np.uint32)
     seg = RNG.integers(-3, 4, size=n).astype(np.int32)  # signed, ungrouped
-    got = np.asarray(thrs.sort_keys(jnp.asarray(x), segment_ids=jnp.asarray(seg),
-                                    method="pallas"))
+    got = np.asarray(thrs.sort_keys(jnp.asarray(x),
+                                    segment_ids=jnp.asarray(seg)))
     np.testing.assert_array_equal(got, x[_oracle(seg, x)])
 
 
@@ -92,8 +90,8 @@ def test_segmented_batched_rows():
     B, n = 3, 400
     x = RNG.integers(0, 2**32, size=(B, n), dtype=np.uint32)
     seg = np.sort(RNG.integers(0, 5, size=(B, n)).astype(np.int32), axis=1)
-    got = np.asarray(thrs.sort_keys(jnp.asarray(x), segment_ids=jnp.asarray(seg),
-                                    method="pallas"))
+    got = np.asarray(thrs.sort_keys(jnp.asarray(x),
+                                    segment_ids=jnp.asarray(seg)))
     for b in range(B):
         np.testing.assert_array_equal(got[b], x[b][_oracle(seg[b], x[b])])
 
@@ -104,7 +102,7 @@ def test_segment_ids_from_offsets():
         ids = np.asarray(thrs.segment_ids_from_offsets(
             jnp.asarray(np.array(offs, np.int32)), n))
         # exact ids for [0,3) [3,7) [7,10): leading-0 conventions normalize
-        # so element 0 is always in segment 0 (ADVICE r1)
+        # so element 0 is always in segment 0
         want = [0] * 3 + [1] * 4 + [2] * 3
         assert ids.tolist() == want, (offs, ids)
 

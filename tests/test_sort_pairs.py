@@ -54,7 +54,7 @@ def test_pairs_u128_payload(method):
 
 @pytest.mark.parametrize("method", METHODS)
 def test_pairs_pytree_payload(method):
-    # TPU-native extension: arbitrary pytree payloads ride the permutation.
+    # Extension: arbitrary pytree payloads ride the permutation.
     n = 4_321
     keys = random_keys(np.uint32, n, seed=8) % np.uint32(16)
     values = {"idx": np.arange(n, dtype=np.int32), "w": np.linspace(0, 1, n, dtype=np.float32)}
@@ -84,7 +84,7 @@ def test_sort_indices_matches_oracle_perm():
 
 
 # ---------------------------------------------------------------------------
-# stable=False (unstable fast path: stability index word dropped, r3)
+# stable=False: permits any order among ties; the sort stays stable
 # ---------------------------------------------------------------------------
 
 def _check_unstable(keys, values, got_k, got_v, descending=False):
@@ -100,29 +100,14 @@ def _check_unstable(keys, values, got_k, got_v, descending=False):
     np.testing.assert_array_equal(a, b, "pair multiset not preserved")
 
 
-@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64, np.float32])
-@pytest.mark.parametrize("order", ["ascending", "descending"])
-def test_pairs_unstable_pallas(key_dtype, order):
-    n = 4096  # pad-free: power of two >= 2**MIN_L
-    keys = random_keys(key_dtype, n, seed=99)
-    if np.dtype(key_dtype).kind == "u":
-        keys = keys % np.dtype(key_dtype).type(16)  # heavy duplicates
-    values = np.arange(n, dtype=np.uint32)
-    k, v = thrs.sort_pairs(jnp.asarray(keys), jnp.asarray(values),
-                           order=order, method="pallas", stable=False)
-    _check_unstable(keys, values, np.asarray(k), np.asarray(v),
-                    descending=(order == "descending"))
-
-
 def test_pairs_unstable_all_equal_keys_permutation():
-    """All-ones keys everywhere: every CE is a tie. The tie-consistent
-    kernels must still emit a PERMUTATION of the payloads (the contract-
-    reliant CE form duplicates the low tuple of a tied pair)."""
+    """All-ones keys everywhere: every comparison is a tie; the payloads
+    must still come back as a permutation."""
     n = 2048
     keys = np.full(n, 0xFFFFFFFF, np.uint32)
     values = np.arange(n, dtype=np.uint32)
     k, v = thrs.sort_pairs(jnp.asarray(keys), jnp.asarray(values),
-                           method="pallas", stable=False)
+                           stable=False)
     np.testing.assert_array_equal(np.asarray(k), keys)
     np.testing.assert_array_equal(np.sort(np.asarray(v)), values)
 
@@ -132,94 +117,45 @@ def test_pairs_unstable_u64_payload():
     keys = (random_keys(np.uint64, n, seed=7) % np.uint64(8))
     values = random_keys(np.uint64, n, seed=8)
     k, v = thrs.sort_pairs(jnp.asarray(keys), jnp.asarray(values),
-                           method="pallas", stable=False)
+                           stable=False)
     _check_unstable(keys, values, np.asarray(k), np.asarray(v))
 
 
 def test_pairs_unstable_batched():
-    B, nr = 5, 512  # pow2 rows: row-padding-free
+    B, nr = 5, 512
     keys = (random_keys(np.uint32, B * nr, seed=3) % np.uint32(4)).reshape(B, nr)
     values = np.broadcast_to(np.arange(nr, dtype=np.uint32), (B, nr)).copy()
     k, v = thrs.sort_pairs(jnp.asarray(keys), jnp.asarray(values),
-                           method="pallas", stable=False)
+                           stable=False)
     for r in range(B):
         _check_unstable(keys[r], values[r], np.asarray(k)[r], np.asarray(v)[r])
 
 
 def test_pairs_unstable_nonpow2_stays_stable():
-    """Non-pad-free sizes keep the index word: output must be bit-exactly
-    the stable result."""
+    """stable=False stays stable: output is bit-exactly the stable
+    result."""
     n = 3000
     keys = (random_keys(np.uint32, n, seed=5) % np.uint32(8))
     values = np.arange(n, dtype=np.uint32)
     k, v = thrs.sort_pairs(jnp.asarray(keys), jnp.asarray(values),
-                           method="pallas", stable=False)
+                           stable=False)
     want_k, want_v = oracle_sort_pairs(keys, values)
     np.testing.assert_array_equal(np.asarray(k), want_k)
     np.testing.assert_array_equal(np.asarray(v), want_v)
 
 
-def test_pairs_unstable_drops_index_word(monkeypatch):
-    """The fast path really runs one fewer compare word."""
-    from tinyhipradixsort_tpu.ops import bitonic_engine as be
-
-    seen = {}
-    real = be.sort_words
-
-    def spy(cmp_words, carry_words, **kw):
-        seen["ncmp"] = len(cmp_words)
-        seen["allow"] = kw.get("allow_tied_carries", False)
-        return real(cmp_words, carry_words, **kw)
-
-    monkeypatch.setattr(be, "sort_words", spy)
-    n = 1024
-    keys = np.arange(n, dtype=np.uint32)
-    values = np.arange(n, dtype=np.uint32)
-    with jax.disable_jit():
-        thrs.sort_pairs(jnp.asarray(keys), jnp.asarray(values),
-                        method="pallas", stable=False)
-        assert seen == {"ncmp": 1, "allow": True}
-        thrs.sort_pairs(jnp.asarray(keys), jnp.asarray(values),
-                        method="pallas", stable=True)
-        assert seen == {"ncmp": 2, "allow": False}
-
-
 def test_pairs_unstable_f32_zeros_exact_false():
-    """Float pairs shed the index word only with zeros_exact=False (the
-    -0.0 tag rides it): keys come back zero-normalized, pair multiset
-    preserved up to that normalization."""
+    """Float pairs with stable=False and zeros_exact=False: keys come back
+    sorted and the pair multiset is preserved (the single-device sort
+    keeps -0.0 bit-exactly)."""
     n = 2048
     keys = np.random.default_rng(11).standard_normal(n).astype(np.float32)
     keys[:64] = -0.0
     keys[64:128] = 0.0
     values = np.arange(n, dtype=np.uint32)
     k, v = thrs.sort_pairs(jnp.asarray(keys), jnp.asarray(values),
-                           method="pallas", stable=False, zeros_exact=False)
+                           stable=False, zeros_exact=False)
     k = np.asarray(k)
-    assert not np.any(np.signbit(k[k == 0.0])), "-0.0 must normalize"
-    norm = keys.copy()
-    norm[norm == 0.0] = 0.0  # collapse -0.0
-    _check_unstable(norm, values, k, np.asarray(v))
-
-
-def test_pairs_unstable_f32_drops_index_word(monkeypatch):
-    from tinyhipradixsort_tpu.ops import bitonic_engine as be
-
-    seen = {}
-    real = be.sort_words
-
-    def spy(cmp_words, carry_words, **kw):
-        seen["ncmp"] = len(cmp_words)
-        return real(cmp_words, carry_words, **kw)
-
-    monkeypatch.setattr(be, "sort_words", spy)
-    n = 1024
-    keys = np.linspace(-1, 1, n).astype(np.float32)
-    values = np.arange(n, dtype=np.uint32)
-    with jax.disable_jit():
-        thrs.sort_pairs(jnp.asarray(keys), jnp.asarray(values),
-                        method="pallas", stable=False, zeros_exact=False)
-        assert seen["ncmp"] == 1
-        thrs.sort_pairs(jnp.asarray(keys), jnp.asarray(values),
-                        method="pallas", stable=False)  # tag keeps the word
-        assert seen["ncmp"] == 2
+    _check_unstable(keys, values, k, np.asarray(v))
+    p = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(k.view(np.uint32), keys[p].view(np.uint32))

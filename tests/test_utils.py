@@ -6,7 +6,8 @@ import jax.numpy as jnp
 import pytest
 
 import tinyhipradixsort_tpu as thrs
-from tinyhipradixsort_tpu.utils.profiling import Stopwatch, time_fn
+from tinyhipradixsort_tpu.utils.profiling import (Stopwatch, device_report,
+                                                  quartiles, time_fn)
 
 
 def test_stopwatch():
@@ -16,10 +17,23 @@ def test_stopwatch():
     assert s > 0 and sw.ms == s * 1e3
 
 
-def test_time_fn_subtracts_floor():
+def test_time_fn_times_each_rep():
     x = jnp.arange(4096, dtype=jnp.uint32)
-    t, floor = time_fn(jax.jit(lambda a: a + 1), x, reps=2)
-    assert t >= 0 and floor >= 0
+    times = time_fn(jax.jit(lambda a: a + 1), x, reps=3)
+    assert len(times) == 3 and all(t > 0 for t in times)
+
+
+def test_quartiles():
+    assert quartiles([4.0, 1.0, 3.0, 2.0, 5.0]) == (2.0, 3.0, 4.0)
+
+
+def test_device_report_names_the_device():
+    rep = device_report()
+    assert rep["platform"] == jax.devices()[0].platform
+    assert rep["device_kind"] == jax.devices()[0].device_kind
+    assert rep["count"] == len(jax.devices())
+    # name and power limit come from nvidia-smi, or are None without it
+    assert (rep["gpu_name"] is None) == (rep["nvidia_smi"] is None)
 
 
 def test_radixsort_class_roundtrip():

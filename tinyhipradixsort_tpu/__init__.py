@@ -1,11 +1,11 @@
-"""tinyhipradixsort_tpu — a TPU-native stable radix-sort engine.
+"""tinyhipradixsort_tpu — a stable radix-semantics sort engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability set of
+A from-scratch JAX/XLA re-design of the capability set of
 ``Ushio/tinyhipradixsort`` (single-header GPU LSD radix sort): stable LSD radix
 sort of 32/64-bit integer and float keys (order-preserving bit-flip transform
 for floats), keys-only and key-value sorting with arbitrary payloads,
-ascending/descending order, and partial bit windows — scaled out to multi-chip
-TPU meshes via shard_map collectives (``tinyhipradixsort_tpu.parallel``).
+ascending/descending order, and partial bit windows — scaled out to multi-device
+meshes via shard_map collectives (``tinyhipradixsort_tpu.parallel``).
 
 This package requires 64-bit JAX types for u64/f64 keys and therefore enables
 ``jax_enable_x64`` at import.

@@ -1,6 +1,6 @@
 """Sort configuration types.
 
-TPU-native analogue of the reference's ``thrs::RadixSort::Config`` type system
+Analogue of the reference's ``thrs::RadixSort::Config`` type system
 (reference: tinyhipradixsort.hpp:638-749). Where the reference RTC-compiles one
 GPU module per (key type, value type, order, alignment) combination, here each
 distinct configuration is simply a distinct ``jax.jit`` cache entry — the
@@ -24,7 +24,7 @@ __all__ = ["KeyType", "ValueType", "SortOrder", "Config", "temporary_buffer_byte
 
 class KeyType(enum.Enum):
     """Key dtypes (reference: hpp:638-644; I32/I64 and the 16-bit entries
-    are extensions — BF16 is the native TPU compute dtype)."""
+    are extensions)."""
 
     U32 = np.dtype(np.uint32)
     U64 = np.dtype(np.uint64)
@@ -57,7 +57,7 @@ class KeyType(enum.Enum):
 class ValueType(enum.Enum):
     """Payload width classes (reference: hpp:645-650).
 
-    The TPU build is more general: any array (any dtype / trailing shape) whose
+    This build is more general: any array (any dtype / trailing shape) whose
     leading axis matches the keys can ride along as the payload. These enum
     members only classify byte width for reference parity / scratch estimates.
     U128 is represented as shape ``(n, 4)`` uint32 (the reference lowers u128 to
@@ -100,7 +100,7 @@ class Config:
     """Sort configuration (reference: hpp:697-749 ``RadixSort::Config``).
 
     ``key_is_16byte_aligned`` was a GPU vectorized-load hint (hpp:700); it is
-    accepted for parity but has no effect on TPU (XLA/Mosaic manage layout).
+    accepted for parity but has no effect (XLA manages layout).
     """
 
     key_type: KeyType = KeyType.U32
@@ -123,10 +123,8 @@ class Config:
         )
 
 
-# Tile size of the single-chip pipeline: elements per histogram/reorder tile.
-# Analogue of RADIX_SORT_BLOCK_SIZE=2048 (reference: hpp:19), chosen much larger
-# here because the TPU tile must amortize vector-unit work across (8,128) lanes
-# and fragment-DMA granularity, not warp-level atomics.
+# Tile size of the scratch estimate below: elements per histogram/reorder
+# tile (analogue of RADIX_SORT_BLOCK_SIZE=2048, reference: hpp:19).
 DEFAULT_TILE = 32768
 RADIX_BITS = 8
 NUM_BUCKETS = 1 << RADIX_BITS
@@ -137,7 +135,7 @@ def temporary_buffer_bytes(n: int, config: Config | None = None, tile: int = DEF
     ``getTemporaryBufferBytes``, reference: hpp:806-843).
 
     JAX manages buffers functionally, so nothing needs to be pre-allocated by
-    the caller; this documents the transient HBM footprint of one digit pass:
+    the caller; this documents the transient device footprint of one digit pass:
     the ping-pong key (and value) buffer plus the ``[256, num_tiles]`` count
     matrix.
     """

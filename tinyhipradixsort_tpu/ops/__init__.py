@@ -1,1 +1,2 @@
-"""Sort engine implementations (argsort / counting / Pallas TPU kernels)."""
+"""Sort engines (XLA argsort, jnp counting / LSD cross-checks) and the
+u32 word codecs of the distributed sort."""

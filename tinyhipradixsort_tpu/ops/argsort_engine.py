@@ -3,15 +3,16 @@
 Two engines:
 
 * ``argsort``: one stable argsort of the masked bit window, then a single
-  gather of every carried array. The semantic ground truth — any digit
+  gather of every carried array. The engine every public entry point uses
+  (``method="auto"``), and the semantic ground truth — any digit
   decomposition must match this exactly.
 * ``lsd_argsort``: an LSD pass loop (one stable argsort per 8-bit digit),
   mirroring the reference's per-digit pass structure
   (reference: tinyhipradixsort.hpp:867-933) with XLA sort standing in for the
   histogram/scan/reorder kernels. Used to cross-check pass-loop plumbing.
 
-These run on any backend. On TPU, XLA lowers sort to a comparison network —
-correct but far from radix-sort speed; the Pallas engine is the fast path.
+These run on any backend. On an NVIDIA GPU, XLA can hand a single-key
+ascending sort to CUB's device radix sort.
 """
 
 from __future__ import annotations

@@ -14,7 +14,6 @@ result to a single stable sort on the whole window.
 
 from __future__ import annotations
 
-import jax
 import numpy as np
 import jax.numpy as jnp
 
@@ -72,10 +71,3 @@ def pad_to_multiple(x: jnp.ndarray, multiple: int, fill):
         return x
     return jnp.concatenate([x, jnp.full((npad - n,), fill, dtype=x.dtype)])
 
-
-def interpret_default() -> bool:
-    """True when Pallas kernels should run interpreted (no TPU backend)."""
-    try:
-        return jax.devices()[0].platform != "tpu"
-    except RuntimeError:
-        return True

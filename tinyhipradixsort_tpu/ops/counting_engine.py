@@ -13,9 +13,7 @@ Mirrors the reference's three-stage pass pipeline exactly, in functional form
 
 Ranking is vectorized (one-hot cumsum per tile under ``lax.map`` to bound the
 transient footprint); the permutation is applied as one scatter building the
-inverse permutation followed by gathers, which XLA handles on every backend.
-The Pallas engine replaces stages 1 and 3 with TPU kernels but shares this
-pass/scan structure, so this module doubles as its reference implementation.
+inverse permutation followed by gathers, which XLA handles on every backend. A cross-check engine for the tests.
 """
 
 from __future__ import annotations

@@ -1,17 +1,18 @@
 """Multi-host bootstrap helpers.
 
-The reference has no distributed anything (SURVEY.md §2); on TPU pods the
+The reference has no distributed anything (SURVEY.md §2); across hosts the
 process group is JAX's own. These helpers wrap the standard flow so the
 distributed sort can run across hosts with one call per process:
 
     from tinyhipradixsort_tpu.parallel import multihost
-    multihost.initialize()            # env-driven on Cloud TPU / GKE
+    multihost.initialize("host0:1234", num_processes=2, process_id=rank)
     mesh = multihost.global_sort_mesh()
     out = thrs.psort_keys(keys, mesh=mesh)
 
 All collectives in :mod:`.psort` are ordinary XLA collectives under
-``shard_map``, so they ride ICI within a slice and DCN across slices with no
-code changes — the mesh device order determines the ring.
+``shard_map`` (NCCL on GPUs), so they run within a host and across hosts
+with no code changes — the mesh device order determines the ring. One
+process that drives all devices of a single host needs no initialize.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """``jax.distributed.initialize`` with env-driven defaults.
 
-    On Cloud TPU (GCE/GKE) all arguments are discovered automatically; pass
-    them explicitly for manual clusters. Must be called once per process,
+    Pass the coordinator address, process count and process id unless the
+    cluster environment provides them. Must be called once per process,
     before any other JAX call (including importing modules that build
     device constants, e.g. :mod:`.psort`).
     """

@@ -1,5 +1,5 @@
-"""Utilities: deterministic PRNG for tests/benchmarks, timing helpers,
-native host oracle bridge."""
+"""Utilities: deterministic PRNG for tests/benchmarks, timing and device
+helpers, native host oracle bridge."""
 
 from .profiling import Stopwatch, time_fn, trace
 
